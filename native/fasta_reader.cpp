@@ -3,7 +3,7 @@
 // Role: the reference pipeline's sequence ingestion is needletail (Rust)
 // inside the skani crate (SURVEY.md §2 L1); pyskani itself is fed
 // in-memory bytes.  This library provides the equivalent native path for
-// the TPU framework's host layer: memory-mapped FASTA parsing with
+// the engine's host layer: memory-mapped FASTA parsing with
 // contig concatenation into a single padded buffer, ready for the device
 // sketch kernel (see pyskani_tpu/ops/sketch.py).
 //

@@ -1,8 +1,8 @@
-"""pyskani_tpu — a TPU-native average-nucleotide-identity engine.
+"""pyskani_tpu — an average-nucleotide-identity engine for NVIDIA GPUs.
 
 A from-scratch reimplementation of the skani method (FracMinHash
 sketching, marker-kmer screening, sparse anchor chaining, ANI/aligned-
-fraction estimation) built on JAX/XLA/Pallas for TPUs, exposing the same
+fraction estimation) built on JAX/XLA/Pallas, exposing the same
 public API as the ``pyskani`` reference package (Database / Sketch / Hit;
 see /root/reference/src/pyskani/_skani.pyi for the mirrored surface).
 """

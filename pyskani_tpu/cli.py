@@ -1,4 +1,4 @@
-"""Command-line interface: the skani CLI surface on the TPU engine.
+"""Command-line interface: the skani CLI surface on the device engine.
 
 Re-creates the four skani subcommands the reference crate ships (its
 ``cli`` feature is enabled by pyskani, reference Cargo.toml:34; modes
@@ -308,7 +308,7 @@ def cmd_triangle(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="skani-tpu",
-        description="TPU-native ANI computation (skani method)")
+        description="GPU ANI computation (skani method) on JAX")
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("sketch", help="sketch genomes into a database")

@@ -6,12 +6,12 @@ from disk serially inside the query loop
 (/root/reference/src/pyskani/_skani/lib.rs:639-657).  Neither scales to
 databases larger than device memory.
 
-This module streams the reference store through the chip in fixed-size
-chunks with software double-buffering: while chunk *i* is being chained
-on the TPU, chunk *i+1* is already being deserialised on the host and
-transferred to the device (``jax.device_put`` is asynchronous, and jit
-dispatch returns before the compute finishes, so host IO, PCIe/ICI
-transfer and MXU compute overlap).  This is the program-phase /
+This module streams the reference store through the device in
+fixed-size chunks with software double-buffering: while chunk *i* is
+being chained on the device, chunk *i+1* is already being deserialised
+on the host and transferred (``jax.device_put`` is asynchronous, and jit
+dispatch returns before the compute finishes, so host IO, the PCIe
+transfer and device compute overlap).  This is the program-phase /
 pipeline-parallel capability called out in SURVEY.md §2.3 ("absent in
 reference").
 """

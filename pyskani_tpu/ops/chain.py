@@ -1,6 +1,6 @@
 """Device-side anchor chaining + ANI/AF estimation (the flagship op).
 
-TPU-native equivalent of ``skani::chain::chain_seeds`` (reference call
+Device equivalent of ``skani::chain::chain_seeds`` (reference call
 site: /root/reference/src/pyskani/_skani/lib.rs:646-653), with semantics
 defined by the fitted NumPy oracle (pyskani_tpu.oracle.chain).  Design:
 
@@ -13,12 +13,12 @@ defined by the fitted NumPy oracle (pyskani_tpu.oracle.chain).  Design:
   packed order identical);
 * anchors are scattered into a [fragments, anchors-per-fragment] grid;
   the banded chain DP advances every fragment in lockstep along the
-  anchor axis (the sequential dependency is per fragment, so the vector
-  unit processes all fragments x band lanes in parallel at each step);
+  anchor axis (the sequential dependency is per fragment, so all
+  fragments x band slots are processed in parallel at each step);
 * the DP runs ONCE per *batch* of pairs: each pair's fragment rows are
   independent, so a chunk of B pairs is reshaped to one [B*NF, PF] grid
-  and the Pallas kernel (or lax.scan fallback) walks PF steps with
-  B*NF lanes — B times fewer sequential steps than vmapping the DP;
+  and the Pallas kernel (GPU) or the lax.scan reference walks PF steps
+  with B*NF lanes — B times fewer sequential steps than vmapping the DP;
 * chains are identified by the DP's union roots (each anchor adopts its
   chosen predecessor's root), so per-chain statistics are plain masked
   segment reductions on the grid — no host-side union-find;
@@ -70,8 +70,8 @@ def _check_supported(cfg: ChainConfig):
     if cfg.denom_mode != "span":
         # "fragment" used to be accepted here but raised at runtime on
         # the per-pair path while the block path silently computed span
-        # semantics (VERDICT r4 weak #1) — reject any non-span mode up
-        # front so both pipelines agree on every accepted config
+        # semantics — reject any non-span mode up front so both
+        # pipelines agree on every accepted config
         raise NotImplementedError("engine implements the span denominator")
     if cfg.numer_mode != "anchors":
         raise NotImplementedError("engine implements anchors numerator")
@@ -109,9 +109,9 @@ def _join_anchors(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
     source tag and sorted ONCE by (kmer, tag, index); run arithmetic on
     the sorted stream (cummax/cumsum segmented ops) yields, for every
     query occurrence, the position and length of its kmer's reference run
-    — no binary searches, which lower poorly on TPU.  Output slots are in
-    query-occurrence-major order, matching the oracle's join order so
-    later stable sorts tie-break identically.
+    — no binary searches.  Output slots are in query-occurrence-major
+    order, matching the oracle's join order so later stable sorts
+    tie-break identically.
     """
     Sq, Sr = query.seed_budget, ref.seed_budget
     n = Sq + Sr
@@ -150,7 +150,7 @@ def _join_anchors(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
     A = budgets.max_anchors
     t = jnp.arange(A, dtype=jnp.int32)
     # invert the prefix: source tagged position for each output slot via
-    # scatter of run offsets + cummax (TPU-friendly, no binary search)
+    # scatter of run offsets + cummax (no binary search)
     slot0 = jnp.where(ok, offs, A)
     src_map = jnp.zeros(A + 1, jnp.int32).at[slot0].max(i)
     src = jax.lax.cummax(src_map[:A])
@@ -267,15 +267,17 @@ def _unpack_meta(grid):
 
 
 def _dp_dispatch(grid, cfg: ChainConfig, budgets: EngineBudgets):
-    """Pick the DP implementation: Pallas kernel on TPU, lax.scan else.
+    """Pick the DP implementation: the compiled Pallas kernel on a GPU,
+    the ``lax.scan`` reference everywhere else.
 
     ``grid`` rows (fragments) are independent, so callers may pass any
     number of rows — including several pairs' grids stacked together.
     """
-    if jax.default_backend() == "tpu":
-        from .chain_dp_pallas import dp_pallas
-        score_t, root_t = dp_pallas(grid["qpos"].T, grid["rpos"].T,
-                                    grid["meta"].T, cfg)
+    if jax.default_backend() == "gpu":
+        from . import chain_dp_pallas
+        score_t, root_t = chain_dp_pallas.dp_pallas(
+            grid["qpos"].T, grid["rpos"].T, grid["meta"].T, cfg,
+            interpret=False)
         return score_t.T, root_t.T
     return _dp_scan(_unpack_meta(grid), cfg, budgets)
 
@@ -836,11 +838,9 @@ def _grid_from_sorted_stream(rowid_s: jax.Array, w1: jax.Array,
     carry a sentinel rowid and sort last), so each grid row is a
     contiguous stream run: row r occupies [bounds[r], bounds[r+1]) and
     grid[r, c] = stream[bounds[r] + c] for c < min(count, PF).  Building
-    the grid as a per-row sliced GATHER replaces the r3 full-stream
-    scatter, which was the single hottest op of a block tile (46.9 of
-    ~162 ms device time, scripts/profile_chain_r4.py — TPU scatters pay
-    ~8-13 ns per random-access row while contiguous-slice gathers
-    vectorize).  Returns (w1g, w2g, row_bounds [P*NF+1]).
+    the grid as a per-row sliced GATHER replaces a full-stream scatter:
+    each row reads one contiguous slice instead of one random-access
+    write per anchor.  Returns (w1g, w2g, row_bounds [P*NF+1]).
     """
     A = rowid_s.shape[0]
     row_bounds = jnp.searchsorted(
@@ -852,8 +852,8 @@ def _grid_from_sorted_stream(rowid_s: jax.Array, w1: jax.Array,
     idx = jnp.minimum(starts_r[:, None] + cols[None, :], A - 1)
     ok_g = cols[None, :] < jnp.minimum(counts_r, PF)[:, None]
     # ONE stacked gather moves both words per resolved index (the
-    # per-element index resolution dominates gather cost; two separate
-    # plane gathers measured 2x14.95 ms vs ~17 ms stacked)
+    # per-element index resolution dominates gather cost, so two
+    # separate plane gathers pay it twice)
     w12 = jnp.stack([w1, w2], axis=1)                # [A, 2]
     g = w12[idx]                                     # [P*NF, PF, 2]
     w1g = jnp.where(ok_g, g[:, :, 0], jnp.uint32(0))
@@ -902,13 +902,12 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     list for chain_triangle).
 
     Replaces the vmapped per-pair scatter reductions (7 scatter ops over
-    [NF, PF+1] grids — the dominant post-DP cost on TPU) with a PER-ROW
-    sort of the [R, PF] anchor grid by chain root followed by fused
-    per-row segmented scans; per-chain values sit at segment ends, and
-    row-level aggregates (fragment numerators, spans) are masked row
-    reductions.  Chain segments never span rows, so every scan/sort runs
-    along axis -1 (log2(PF) levels, vectorized across rows) instead of
-    over the flattened R*PF stream.
+    [NF, PF+1] grids) with a PER-ROW sort of the [R, PF] anchor grid by
+    chain root followed by fused per-row segmented scans; per-chain values
+    sit at segment ends, and row-level aggregates (fragment numerators,
+    spans) are masked row reductions.  Chain segments never span rows, so
+    every scan/sort runs along axis -1 (log2(PF) levels, vectorized across
+    rows) instead of over the flattened R*PF stream.
 
     The per-pair tail (AF interval unions, estimators) never touches the
     full anchor stream: kept chain ends are compacted into a
@@ -988,10 +987,10 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     # last row of the pair whose kept-prefix is <= c holds chain c:
     # scatter each NON-EMPTY row's id at its kept-prefix offset and
     # cummax-fill along the chain axis.  The binary-search formulation
-    # this replaces paid log2(NF) gathers per [P, CE] slot (8.3 ms of
-    # an 80 ms 8x8 tile); rows with no kept chains never own a slot, so
-    # the fill lands on the true owner for every c < the pair's total
-    # (and end_valid rejects the rest, exactly as the search did).
+    # this replaces paid log2(NF) gathers per [P, CE] slot; rows with no
+    # kept chains never own a slot, so the fill lands on the true owner
+    # for every c < the pair's total (and end_valid rejects the rest,
+    # exactly as the search did).
     rows_nf = jnp.broadcast_to(jnp.arange(NF, dtype=jnp.int32)[None, :],
                                (P, NF))
     p_nf = jnp.broadcast_to(jnp.arange(P, dtype=jnp.int32)[:, None],
@@ -1046,14 +1045,12 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
         tab = r_frag_offs.reshape(-1)
         # the per-element fragment-offset lookup and the (pair, refrag)
         # binning run as FUSED compare-reductions when the offset table
-        # and the bin axis are small: random-access ops pay ~8 ns per
-        # element on TPU (the r3 scatter-add + table gather were 18.3 +
-        # 16.6 ms per 8x8 tile, scripts/profile_chain_r4.py) while a
-        # K-way masked sum streams the grid at VPU rate (~2 ns/elem at
-        # K~200).  The reduction scales linearly in K and NF though, so
-        # for fragmented many-contig stores (large contig buckets / many
-        # fragments) the gather + scatter-add formulation wins and is
-        # kept as the fallback — both are exact.
+        # and the bin axis are small: a K-way masked sum streams the grid
+        # with no random access, where a scatter-add + table gather pay
+        # one random access per element.  The reduction scales linearly
+        # in K and NF though, so for fragmented many-contig stores (large
+        # contig buckets / many fragments) the gather + scatter-add
+        # formulation wins and is kept as the fallback — both are exact.
         if tab.shape[0] <= 512 and NF <= 512:
             base = jnp.sum(
                 jnp.where(flat_off[:, :, None] ==
@@ -1200,12 +1197,11 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     within one genome IS its multiplicity there, so dropping over-cap
     seeds up front removes exactly the runs the per-pair join rejects.
 
-    Gathers dominate this stage on TPU (~9 ms per 1M-element gather, vs
-    ~4 ms for a whole 622k 2-key sort — scripts/micro_scatter.py), so the
-    per-seed payloads RIDE THE SORT as value operands and everything the
-    downstream pipeline needs is packed into two i32 payload words per
-    seed, precomputed at stream-build time on the (much smaller) seed
-    tables:
+    Random-access gathers cost more per element than riding a sort that
+    runs anyway, so the per-seed payloads RIDE THE SORT as value operands
+    and everything the downstream pipeline needs is packed into two i32
+    payload words per seed, precomputed at stream-build time on the (much
+    smaller) seed tables:
       ref  entry: p1 = in-contig position, p2 = g<<15 | rcid<<1 | strand
       query entry: p1 = gq<<1 | strand  (gq = genome-global position),
                    p2 = qi*NF + fragment  (-1 if the fragment overflows)
@@ -1240,8 +1236,8 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     # q_p1 carries the CONTIG-LOCAL position: within a fragment the
     # query contig is fixed, so ordering by qpos equals ordering by
     # (qcid, qpos) and the genome-global coordinate never needs to be
-    # formed (the r4 layout carried gq and converted back to qpos after
-    # the rowid sort with a 6.3 ms per-anchor table gather)
+    # formed (carrying it would cost a per-anchor table gather after the
+    # rowid sort to convert back to qpos)
     q_p1 = (q_pos << 1) | queries.strands.reshape(-1).astype(jnp.int32)
     q_p2 = jnp.where(frag < NF, qi_id * NF + frag, -1)
 
@@ -1262,7 +1258,7 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     r_excl = jnp.cumsum((~tag_q).astype(jnp.int32)) - (~tag_q).astype(jnp.int32)
     # r_excl[run_start] via a cummax fill instead of an n-scale gather:
     # r_excl is non-decreasing, so the running max of its run-start
-    # samples reproduces the gather exactly (measured 2.8 ms saved)
+    # samples reproduces the gather exactly
     r_excl_rs = jax.lax.cummax(jnp.where(first, r_excl, 0))
     rc = jnp.where(tag_q, r_excl - r_excl_rs, 0).astype(jnp.int32)
     is_sent = kmer_s == SENT
@@ -1279,8 +1275,8 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
         # ONE packed scatter for (source index, run offset): within a
         # k-mer run every genome contributes at most `cap` premasked
         # occurrences, so i - run_start < cap * (G_r + G_q) fits 8 bits
-        # and (i << 8 | delta) stays monotone in i — halving the anchor
-        # inversion's scatter cost (2 x 3.2 ms per 8x8 tile)
+        # and (i << 8 | delta) stays monotone in i — one scatter instead
+        # of two for the anchor inversion
         pm = jnp.zeros(A + 1, jnp.int32).at[slot0].max(
             jnp.where(ok, (i << 8) | (i - run_start), 0))
         fill = jax.lax.cummax(pm[:A])
@@ -1571,7 +1567,7 @@ def chain_triangle(genomes: DeviceSketch, *, cfg: ChainConfig,
                    total_anchors: int | None = None):
     """All unordered pairs of a genome stack: ONE join sort, ONE DP.
 
-    TPU-native `skani triangle` core (reference mode listed at
+    Device `skani triangle` core (reference mode listed at
     /root/reference/src/pyskani/_skani/lib.rs Mode::Search analogue; the
     reference has no batched mode at all).  Versus tiling the triangle
     with chain_block, the self-join sorts each seed table once instead of

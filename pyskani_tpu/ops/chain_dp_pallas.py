@@ -1,21 +1,22 @@
-"""Pallas TPU kernel for the banded chain DP.
+"""Banded chain DP as a Pallas kernel for NVIDIA GPUs (Triton route).
 
-The XLA ``lax.scan`` formulation (ops/chain.py::_dp_scan) pays per-step
-while-loop overhead for hundreds of tiny steps; this kernel runs the same
-recurrence as a hardware ``fori_loop`` with the band window resident in
-VMEM scratch, processing fragments in vector lanes.
+The XLA ``lax.scan`` formulation (ops/chain.py::_dp_scan) launches
+several kernels per anchor step and rewrites every band window in device
+memory between steps.  This kernel walks the whole anchor axis in one
+in-kernel loop and keeps each fragment column's band window on-chip.
 
-Layout: anchor grids are transposed to [PF, NL] so each DP step reads one
-contiguous [NL] row (dynamic indexing on the major axis only).  NL is the
-*lane* axis: every fragment column is an independent recurrence, so
-callers stack many pairs' fragment rows side by side (see
-ops/chain.py::chain_pairs) and the sequential PF walk is paid once per
-batch.  The lane axis is blocked with a pallas grid (LANE_BLOCK columns
-per program instance) so VMEM usage is bounded regardless of batch size.
+Layout: anchor grids are transposed to [PF, NL] so each DP step reads
+one contiguous [NL] row.  NL is the *lane* axis: every fragment column
+is an independent recurrence, so callers stack many pairs' fragment rows
+side by side (see ops/chain.py::chain_pairs) and the sequential PF walk
+is paid once per batch.  Each program owns ``LANE_BLOCK`` lanes, one
+per thread; programs share nothing, so they run in any order.
 
-The band window is a [band, LANE_BLOCK] ring buffer in VMEM scratch.
-Semantics are bit-identical to _dp_scan (tested in
-tests/test_device_chain.py and tests/test_parallel.py).
+The band window is a ring of ``ring`` slots per lane (``band`` rounded
+up to a power of two, as Triton wants power-of-two tensor shapes): step
+``t`` writes slot ``t % ring``, and slots whose recency is ``band`` or
+more are masked out.  Semantics are bit-identical to _dp_scan (tested in
+tests/test_device_chain.py and on the card by chip_smoke.py).
 
 Packed meta layout (must match ops/chain.py): qcid[30:17] rcid[16:3]
 rev[1] valid[0] — chain-compatibility of two anchors is equality of
@@ -30,112 +31,74 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..oracle.chain import ChainConfig
 
 NEG = -1e30
-LANE_BLOCK = 512
+# one lane per thread: each thread keeps its lane's whole ring in
+# registers, so the slot reductions need no cross-thread traffic (two
+# lanes per thread ran at half the speed on an H100, PERF.md)
+NUM_WARPS = 4
+LANE_BLOCK = 32 * NUM_WARPS
 
 
 def _ring_size(band: int) -> int:
-    """Ring-buffer slots: band rounded up to the 8-sublane granularity
-    Mosaic requires for aligned dynamic block reads/writes."""
-    return ((band + 7) // 8) * 8
+    """Ring slots: ``band`` rounded up to a power of two."""
+    return 1 << max(0, (band - 1).bit_length())
 
 
-def _dp_kernel(qpos_ref, rpos_ref, meta_ref, score_out, root_out,
-               w_qpos, w_rpos, w_meta, w_score, w_root,
+def _dp_kernel(qpos_ref, rpos_ref, meta_ref, score_ref, root_ref,
                *, band: int, anchor_score: float, gap_scale: float,
                max_gap: int):
-    """Ring-blocked walk: the anchor axis (padded to a multiple of the
-    ring size by the caller) is processed RING steps per fori_loop
-    iteration with a STATIC inner unroll.  RING is ``band`` rounded up
-    to the 8-sublane granularity Mosaic needs for aligned block reads;
-    window entries older than ``band`` are masked out via the recency
-    table.  Because each outer block starts at a multiple of RING, the
-    ring slot of inner step j is exactly j and the slot-recency table
-    is a compile-time constant — every scratch access, block I/O and
-    recency computation is statically indexed.  Measured on v5e this
-    matches the previous one-anchor-per-iteration loop (~26.5 ms for a
-    [256, 8192] grid — the kernel is bound by the per-step window
-    arithmetic, not loop overhead), but the static structure is simpler
-    for Mosaic and is pinned by a CPU interpret-mode equivalence test."""
-    PFP, NL = qpos_ref.shape
+    PF, L = qpos_ref.shape
     ring = _ring_size(band)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (ring, L), 0)
+    zero = jnp.zeros((ring, L), jnp.int32)
+    win0 = (zero, zero, zero, jnp.full((ring, L), NEG, jnp.float32), zero)
 
-    w_qpos[:] = jnp.zeros((ring, NL), jnp.int32)
-    w_rpos[:] = jnp.zeros((ring, NL), jnp.int32)
-    w_meta[:] = jnp.zeros((ring, NL), jnp.int32)  # valid bit 0 = no match
-    w_score[:] = jnp.full((ring, NL), NEG, jnp.float32)
-    w_root[:] = jnp.zeros((ring, NL), jnp.int32)
+    def step(t, win):
+        wq, wr, wm, ws, wt = win
+        cur_q = qpos_ref[t, :]
+        cur_r = rpos_ref[t, :]
+        cur_m = meta_ref[t, :]
+        cur_valid = (cur_m & 1) == 1
+        cur_rev = (cur_m & 2) == 2
 
-    # recency of ring slot s at inner step j: (j - 1 - s) mod ring —
-    # static per j since outer blocks are ring-aligned (built from an
-    # iota because pallas kernels cannot capture array constants).
-    # Slots with recency >= band are too old for the banded window and
-    # are masked below.
-    slot = jax.lax.broadcasted_iota(jnp.int32, (ring, 1), 0)
-    rec_tab = [jax.lax.rem(j - 1 - slot + 2 * ring, ring)
-               for j in range(ring)]
+        # recency of each slot: 0 = the previous anchor (t - 1)
+        rec = (t - 1 - slot) & (ring - 1)
+        dr = cur_r[None, :] - wr
+        dq_f = cur_q[None, :] - wq
+        dq = jnp.where(cur_rev[None, :], -dq_f, dq_f)
+        same = ((wm >> 1) == (cur_m >> 1)[None, :]) & \
+            ((wm & 1) == 1) & cur_valid[None, :]
+        gap = jnp.abs(dr - dq)
+        ok = same & (dr > 0) & (dq > 0) & (gap < max_gap) & (rec < band)
+        cand = ws + anchor_score - gap.astype(jnp.float32) * gap_scale
+        cand = jnp.where(ok, cand, NEG)
+        best = jnp.max(cand, axis=0)
+        extend = best > anchor_score
 
-    def outer(o, _):
-        base = o * ring
-        q_blk = qpos_ref[pl.ds(base, ring), :]
-        r_blk = rpos_ref[pl.ds(base, ring), :]
-        m_blk = meta_ref[pl.ds(base, ring), :]
-        s_rows = []
-        t_rows = []
-        for j in range(ring):
-            cur_q = q_blk[j, :]
-            cur_r = r_blk[j, :]
-            cur_m = m_blk[j, :]
-            cur_valid = (cur_m & 1) == 1
-            cur_rev = (cur_m & 2) == 2
+        # tie-break to the most recent predecessor (min recency among
+        # the argmax slots; recencies are distinct, so one slot wins)
+        is_best = cand == best[None, :]
+        best_rec = jnp.min(jnp.where(is_best, rec, ring), axis=0)
+        chosen = is_best & (rec == best_rec[None, :])
+        root_best = jnp.max(jnp.where(chosen, wt, 0), axis=0)
 
-            wq = w_qpos[:]
-            wr = w_rpos[:]
-            wm = w_meta[:]
-            ws = w_score[:]
+        score_cur = jnp.where(extend, best, anchor_score).astype(jnp.float32)
+        root_cur = jnp.where(extend & cur_valid, root_best, t)
+        score_ref[t, :] = score_cur
+        root_ref[t, :] = root_cur
 
-            dr = cur_r[None, :] - wr
-            dq_f = cur_q[None, :] - wq
-            dq = jnp.where(cur_rev[None, :], -dq_f, dq_f)
-            same = ((wm >> 1) == (cur_m >> 1)[None, :]) & \
-                ((wm & 1) == 1) & cur_valid[None, :]
-            gap = jnp.abs(dr - dq)
-            ok = same & (dr > 0) & (dq > 0) & (gap < max_gap) & \
-                (rec_tab[j] < band)   # only the last `band` predecessors
-            cand = ws + anchor_score - gap.astype(jnp.float32) * gap_scale
-            cand = jnp.where(ok, cand, NEG)
-            best = jnp.max(cand, axis=0)
-            extend = best > anchor_score
+        put = slot == (t & (ring - 1))
+        return (jnp.where(put, cur_q[None, :], wq),
+                jnp.where(put, cur_r[None, :], wr),
+                jnp.where(put, cur_m[None, :], wm),
+                jnp.where(put, score_cur[None, :], ws),
+                jnp.where(put, root_cur[None, :], wt))
 
-            # tie-break to the most recent predecessor (min recency
-            # among the argmax slots)
-            is_best = cand == best[None, :]
-            best_rec = jnp.min(jnp.where(is_best, rec_tab[j], ring),
-                               axis=0)
-            chosen = is_best & (rec_tab[j] == best_rec[None, :])
-            root_best = jnp.max(jnp.where(chosen, w_root[:], 0), axis=0)
-
-            score_cur = jnp.where(extend, best,
-                                  anchor_score).astype(jnp.float32)
-            root_cur = jnp.where(extend & cur_valid, root_best, base + j)
-
-            s_rows.append(score_cur)
-            t_rows.append(root_cur)
-            # ring slot of step base+j is exactly j (base % ring == 0)
-            w_qpos[j, :] = cur_q
-            w_rpos[j, :] = cur_r
-            w_meta[j, :] = cur_m
-            w_score[j, :] = score_cur
-            w_root[j, :] = root_cur
-        score_out[pl.ds(base, ring), :] = jnp.stack(s_rows)
-        root_out[pl.ds(base, ring), :] = jnp.stack(t_rows)
-        return 0
-
-    jax.lax.fori_loop(0, PFP // ring, outer, 0)
+    jax.lax.fori_loop(0, PF, step, win0)
 
 
 def dp_pallas(qpos_t, rpos_t, meta_t, cfg: ChainConfig,
@@ -143,52 +106,39 @@ def dp_pallas(qpos_t, rpos_t, meta_t, cfg: ChainConfig,
     """Run the DP over transposed grids [PF, NL] -> (score, root) [PF, NL].
 
     ``meta`` packs (qcid, rcid, rev, valid) as in ops/chain.py.  NL may be
-    any lane count; it is padded to a LANE_BLOCK multiple and blocked over
-    a pallas grid (each program instance owns LANE_BLOCK independent
-    fragment columns, double-buffered through VMEM).
+    any lane count; it is padded to a LANE_BLOCK multiple with invalid
+    lanes (meta 0).  The anchor axis PF needs no padding: the kernel walks
+    it with a dynamic loop.
 
-    ``interpret=True`` runs the kernel through the Pallas interpreter so
-    the TPU code path can be equivalence-tested on CPU
+    ``interpret=True`` runs the kernel through the Pallas interpreter, so
+    the GPU code path is equivalence-tested on CPU
     (tests/test_device_chain.py::test_pallas_dp_matches_scan).
     """
     PF, NL = qpos_t.shape
-    band = cfg.chain_band
-    ring = _ring_size(band)
     pad = (-NL) % LANE_BLOCK
-    pad_pf = (-PF) % ring   # anchor axis padded to a ring multiple so
-    #                         the kernel's ring-blocked walk stays
-    #                         statically indexed (pad rows are invalid)
-    if pad or pad_pf:
-        qpos_t = jnp.pad(qpos_t, ((0, pad_pf), (0, pad)))
-        rpos_t = jnp.pad(rpos_t, ((0, pad_pf), (0, pad)))
-        meta_t = jnp.pad(meta_t, ((0, pad_pf), (0, pad)))  # meta 0 = invalid
+    if pad:
+        qpos_t, rpos_t, meta_t = (jnp.pad(x, ((0, 0), (0, pad)))
+                                  for x in (qpos_t, rpos_t, meta_t))
     nl_padded = NL + pad
-    pf_padded = PF + pad_pf
-    n_blocks = nl_padded // LANE_BLOCK
 
     kern = functools.partial(
-        _dp_kernel, band=band, anchor_score=cfg.anchor_score,
+        _dp_kernel, band=cfg.chain_band, anchor_score=cfg.anchor_score,
         gap_scale=cfg.gap_cost_scale, max_gap=cfg.max_gap_length)
-    block = pl.BlockSpec((pf_padded, LANE_BLOCK), lambda i: (0, i))
+    block = pl.BlockSpec((PF, LANE_BLOCK), lambda i: (0, i))
     score, root = pl.pallas_call(
         kern,
-        grid=(n_blocks,),
-        out_shape=(jax.ShapeDtypeStruct((pf_padded, nl_padded),
-                                        jnp.float32),
-                   jax.ShapeDtypeStruct((pf_padded, nl_padded),
-                                        jnp.int32)),
+        grid=(nl_padded // LANE_BLOCK,),
+        out_shape=(jax.ShapeDtypeStruct((PF, nl_padded), jnp.float32),
+                   jax.ShapeDtypeStruct((PF, nl_padded), jnp.int32)),
         in_specs=[block] * 3,
         out_specs=(block, block),
-        scratch_shapes=[
-            pltpu.VMEM((ring, LANE_BLOCK), jnp.int32),
-            pltpu.VMEM((ring, LANE_BLOCK), jnp.int32),
-            pltpu.VMEM((ring, LANE_BLOCK), jnp.int32),
-            pltpu.VMEM((ring, LANE_BLOCK), jnp.float32),
-            pltpu.VMEM((ring, LANE_BLOCK), jnp.int32),
-        ],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
+        name="chain_dp",
     )(qpos_t, rpos_t, meta_t)
-    if pad or pad_pf:
-        score = score[:PF, :NL]
-        root = root[:PF, :NL]
+    if pad:
+        score = score[:, :NL]
+        root = root[:, :NL]
     return score, root

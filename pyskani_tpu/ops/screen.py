@@ -1,10 +1,10 @@
 """Device-side batched marker screening.
 
-TPU-native replacement for the reference's serial per-reference screen loop
+Device replacement for the reference's serial per-reference screen loop
 (/root/reference/src/pyskani/_skani/lib.rs:616-637): ONE query's marker set
 is intersected with a whole batch of reference marker sets at once.  The
-marker matrix is the natural "db"-sharded tensor for multi-chip scaling
-(each chip screens its shard of references; shortlist bitmaps are gathered
+marker matrix is the natural "db"-sharded tensor for multi-device scaling
+(each device screens its shard of references; shortlist bitmaps are gathered
 over the mesh — see pyskani_tpu.parallel).
 
 Intersection strategy: concatenate (query, ref) marker pair-arrays, sort,

@@ -1,7 +1,7 @@
 """Emulated 64-bit unsigned integer arithmetic on uint32 pairs.
 
-TPUs have no native 64-bit integer path (XLA emulates it poorly), so the
-FracMinHash threshold test — ``mm_hash64(kmer) < U64_MAX / c`` — is
+The engine runs in JAX's default 32-bit mode (no ``jax_enable_x64``), so
+the FracMinHash threshold test — ``mm_hash64(kmer) < U64_MAX / c`` — is
 evaluated on explicit (hi, lo) uint32 lane pairs.  Only the operations the
 hash needs are provided: add, shl/shr (static shift), xor, not, compare.
 

@@ -9,7 +9,7 @@ heavier ``marker_c`` compression; they form the screening sketch that
 ``Sketch::get_markers_only`` derives (lib.rs:495).
 
 Everything here is vectorised NumPy — this module is the *semantic oracle*
-against which the TPU kernels are tested, not the production path.
+against which the device kernels are tested, not the production path.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def rolling_kmers(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
 class Sketch:
     """Dense array sketch of one genome (oracle layout).
 
-    The TPU engine uses the same logical content padded to buckets; see
+    The device engine uses the same logical content padded to buckets; see
     pyskani_tpu.engine.  Mirrors skani::types::Sketch fields observed at
     lib.rs:147-161 / sketch.rs:17-32.
     """

@@ -1,19 +1,21 @@
-"""Multi-chip / multi-host distribution of the ANI engine.
+"""Multi-device / multi-host distribution of the ANI engine.
 
 The reference is strictly single-process (SURVEY.md §2.3: no distributed
-code of any kind).  This layer introduces the TPU-native scaling story:
+code of any kind).  This layer spreads the engine over several GPUs:
 
 * a 2-D device mesh ``("db", "batch")`` — the reference-database sketch
-  store is sharded over ``db`` (the tensor-parallel analog: each chip owns
-  a slice of the database) and query genomes are sharded over ``batch``
-  (data parallelism);
+  store is sharded over ``db`` (the tensor-parallel analog: each device
+  owns a slice of the database) and query genomes are sharded over
+  ``batch`` (data parallelism).  The cards of one host are joined all to
+  all, so the mesh follows the algorithm, not a physical topology;
 * ``shard_map`` steps compute local [R_shard, Q_shard] result blocks;
-  collective reductions (``psum`` over the mesh) produce global hit
-  statistics, and shortlist bitmaps ride ICI via ``all_gather`` when a
-  globally consistent shortlist is needed;
-* multi-host pods initialise via ``jax.distributed.initialize`` and place
-  each host's database shard with ``device_put``; the on-disk consolidated
-  store is the restart checkpoint (deterministic resharding on reload).
+  collective reductions (``psum`` over the mesh, lowered to NCCL) produce
+  global hit statistics, and shortlist bitmaps travel by ``all_gather``
+  when a globally consistent shortlist is needed;
+* several hosts join through ``jax.distributed.initialize`` (see
+  :func:`initialize_multihost`) and place each host's database shard with
+  ``device_put``; the on-disk consolidated store is the restart
+  checkpoint (deterministic resharding on reload).
 """
 
 from __future__ import annotations
@@ -24,21 +26,20 @@ from typing import Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, **kw):  # new API: check_rep renamed to check_vma
-        kw.pop("check_rep", None)
-        return _shard_map(f, check_vma=False, **kw)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..oracle.chain import ChainConfig
 from ..ops.chain import EngineBudgets, chain_block, chain_pair, chain_pairs
 from ..ops.screen import screen_pass
 from ..ops.sketch import DeviceSketch
 from .mesh import make_mesh  # re-export
+
+
+def shard_map(f, **kw):
+    """``jax.shard_map`` without the replication check (the steps below
+    reduce with explicit collectives)."""
+    return _shard_map(f, check_vma=False, **kw)
 
 
 def shard_leading(mesh: Mesh, tree, axis: str):
@@ -92,8 +93,8 @@ def make_sharded_search(mesh: Mesh, cfg: ChainConfig, budgets: EngineBudgets,
 
         # --- phase 2: chain ONLY the shortlisted pairs ---
         # The screen now pays for itself (reference semantics AND its
-        # compute saving, lib.rs:616-657 — VERDICT r2 weak #4): passing
-        # pair ids are compacted with top_k, and a lax.while_loop walks
+        # compute saving, lib.rs:616-657): passing pair ids are
+        # compacted with top_k, and a lax.while_loop walks
         # ceil(n_pass/chunk) fixed-shape chunks through the batched pair
         # pipeline — compiled once, compute proportional to the actual
         # pass count instead of Rl*Ql.
@@ -165,7 +166,6 @@ def make_sharded_search(mesh: Mesh, cfg: ChainConfig, budgets: EngineBudgets,
         local_block, mesh=mesh,
         in_specs=(P("db"), P("batch")),
         out_specs=out_specs,
-        check_rep=False,
     )
     return jax.jit(step)
 
@@ -204,7 +204,6 @@ def make_sharded_triangle(mesh: Mesh, cfg: ChainConfig,
         local, mesh=mesh,
         in_specs=(P(), P(("db", "batch")), P(("db", "batch"))),
         out_specs=P(("db", "batch")),
-        check_rep=False,
     )
     return jax.jit(step)
 
@@ -227,7 +226,7 @@ def _triangle_with_giants(batch: DeviceSketch, mesh: Mesh, mask: np.ndarray,
     subset runs through ``clean_fn`` (the mesh path), pairs touching a
     giant run through the full-range per-pair pipeline, and the two
     result sets merge in triu order — the same reroute the single-device
-    ``engine.batch.triangle`` applies (VERDICT r4 weak #2).
+    ``engine.batch.triangle`` applies.
 
     ``budgets.max_fragments`` must cover the giant genomes' fragment
     counts (as on every per-pair call).
@@ -282,7 +281,7 @@ def sharded_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
     numerically identical to the single-device triangle because every
     tile runs the same chain_block program.  BASELINE.md asks for the
     all-vs-all metric "measured at 1 chip, 1 host, >= 2 hosts" — this is
-    that scaling path (VERDICT r3 next-step #4).
+    that scaling path.
 
     Returns (ref_idx, query_idx, dict of [P] numpy arrays) over the
     strict upper triangle, in triu order.
@@ -290,7 +289,7 @@ def sharded_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
     Genomes beyond the packed block-grid range (contigs >=
     2^(32-rcid_bits) bp or totals >= 2^30 bp) are pre-partitioned out
     and their pairs run through the full-range per-pair pipeline, same
-    as the single-device triangle (VERDICT r4 weak #2).
+    as the single-device triangle.
     """
     from ..ops.sketch import round_up
 
@@ -430,7 +429,7 @@ def ring_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
         return jax.tree.map(lambda *xs: jnp.concatenate(xs), *outs)
 
     step = shard_map(local, mesh=ring, in_specs=(P("ring"),),
-                     out_specs=P("ring"), check_rep=False)
+                     out_specs=P("ring"))
     fetched = jax.device_get(jax.jit(step)(sharded))
 
     # host assembly: device d's rows sit at [d*(S+1), (d+1)*(S+1))
@@ -459,13 +458,13 @@ def ring_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Initialise JAX distributed runtime for a multi-host pod slice.
+    """Initialise the JAX distributed runtime across several GPU hosts.
 
-    On Cloud TPU pods the arguments are auto-detected; pass them
-    explicitly for manual rendezvous.  After this, ``jax.devices()``
-    spans the whole slice and meshes built by ``make_mesh`` place the
-    ``db`` axis across hosts (DCN) and ``batch`` within hosts (ICI)
-    according to the device order.
+    Pass the coordinator's ``host:port``, the process count and this
+    process's id; they may be left out only where a cluster launcher
+    (for example SLURM) already tells JAX.  After this, ``jax.devices()``
+    spans every host, and meshes built by ``make_mesh`` lay the ``db``
+    axis across hosts and ``batch`` within them in device order.
     """
     kwargs = {}
     if coordinator is not None:

@@ -1,6 +1,6 @@
 """End-to-end sharded database search: Database x device mesh.
 
-Scales the pyskani ``Database.query`` semantics across a multi-chip mesh
+Scales the pyskani ``Database.query`` semantics across a multi-device mesh
 (BASELINE config 4/5): the reference store is sharded over the ``db``
 axis, query genomes stream through the ``batch`` axis in fixed-size
 groups, and each step screens, shortlists and chains only the passing
@@ -11,12 +11,11 @@ Memory stays bounded on BOTH sides: in-memory stores place the whole
 STREAM the reference store through the mesh in fixed-size chunks of
 ``db_axis * stream_refs_per_device`` sketches with software double
 buffering — while chunk *i* is being screened/chained on the devices,
-chunk *i+1* is already being deserialised and transferred (VERDICT r3
-next-step #5; the r3 version stacked the entire store host-side, which
-defeated the lazy ``open()`` contract).
+chunk *i+1* is already being deserialised and transferred (stacking the
+entire store host-side would defeat the lazy ``open()`` contract).
 
 The reference has no distributed layer at all (SURVEY.md §2.3); this is
-the TPU-native scaling story for its serial query loop (lib.rs:616-657).
+the multi-device form of its serial query loop (lib.rs:616-657).
 """
 
 from __future__ import annotations
@@ -157,7 +156,7 @@ class ShardedDatabaseSearch:
         # queries whose fragment count exceeds the searcher's store-sized
         # budget (e.g. multi-Gbp genomes) reroute through the
         # single-device Database.query path, which sizes budgets per
-        # query and has no coordinate caps (VERDICT r4 weak #2) — the
+        # query and has no coordinate caps — the
         # searcher used to raise here.  Checked on raw contig lengths so
         # no sketch work is wasted.
         def _nfrag(contigs) -> int:
@@ -247,7 +246,7 @@ class ShardedDatabaseSearch:
         maf = 0.15
         # shared-pool clipping in any chunk means some pair's join was
         # truncated (ANI may be underestimated) — surface it like every
-        # other path does (ADVICE r4 #4) instead of passing silently
+        # other path does instead of passing silently
         from ..engine.batch import check_overflow
         check_overflow(
             {"anchors_overflow": np.concatenate(

@@ -1,4 +1,4 @@
-"""Parameter structures for the TPU-native ANI engine.
+"""Parameter structures for the JAX ANI engine.
 
 Capability parity with the reference binding's parameter surface:
 ``SketchParams`` mirrors the constructor call at

@@ -7,7 +7,7 @@ skani::regression::use_learned_ani / get_model, called at
 lib.rs:524-528).
 
 This module implements GBDT inference as dense tensor ops (trees flattened
-to node arrays, evaluated by vectorised level-order descent — TPU/jit
+to node arrays, evaluated by vectorised level-order descent — jit
 friendly).  The reference's trained model weights live inside the skani
 crate (not vendored here, and this environment has no network access), so
 the bundled model at ``pyskani_tpu/data/gbdt_model.json`` is RETRAINED
@@ -59,7 +59,7 @@ class GbdtModel:
     # raw-ANI feature, anchored at the reference's golden learned value
     # (skani's MAG-trained weights are not redistributable offline, so the
     # retrained ensemble is calibrated against the published golden point
-    # — scripts/calibrate_learned_ani.py; VERDICT r2 next-steps #3)
+    # — scripts/calibrate_learned_ani.py)
     calib_x: Optional[np.ndarray] = None   # float64 [K] raw-ANI knots
     calib_y: Optional[np.ndarray] = None   # float64 [K] delta at each knot
 
@@ -128,7 +128,7 @@ def get_model(c: int, learned: bool) -> Optional[GbdtModel]:
     return None
 
 
-# Off-anchor safety rails for the retrained ensemble (VERDICT r3 #6):
+# Off-anchor safety rails for the retrained ensemble:
 # skani's own MAG-trained weights are not available offline, and the
 # bundled retrained model is only validated at the golden operating point
 # (E. coli, raw 0.9946 -> 0.9939, delta -0.0007).  Away from it the

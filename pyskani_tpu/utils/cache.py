@@ -1,7 +1,7 @@
 """Persistent XLA compilation cache.
 
-The flagship chain/sketch programs take minutes to compile on a TPU the
-first time (large sorts + Pallas kernels); the persistent cache brings
+The chain and sketch programs take tens of seconds to compile the first
+time (large sorts and the chain-DP kernel); the persistent cache brings
 repeat runs — CLI invocations, benchmarks, CI — down to seconds.  The
 reference binding has no compilation step at all, so amortising ours is
 part of matching its interactive latency.
@@ -16,24 +16,16 @@ _DEFAULT = os.path.join(os.path.dirname(os.path.dirname(
 _enabled = False
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
+def enable_compilation_cache() -> str:
     """Point JAX at a persistent on-disk compilation cache.
 
-    Priority: explicit ``path`` > ``PYSKANI_TPU_CACHE_DIR`` env var >
-    ``.jax_cache/`` next to the package.  Idempotent.  Returns the path.
-    Set ``PYSKANI_TPU_CACHE_DIR=""`` (empty) to disable.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its
+    cache there and no other directory is set.  Otherwise the cache is
+    ``.jax_cache/`` at the checkout root.  Idempotent.
+    Returns the cache directory, or ``""`` when no persistent cache is
+    used (on the CPU backend).
     """
     global _enabled
-    env = os.environ.get("PYSKANI_TPU_CACHE_DIR")
-    if path is None:
-        if env is not None:
-            if not env:
-                return ""
-            path = env
-        else:
-            path = _DEFAULT
-    if _enabled:
-        return path
     import jax
 
     # accelerator executables serialize portably; XLA:CPU AOT results
@@ -44,8 +36,12 @@ def enable_compilation_cache(path: str | None = None) -> str:
     # cache entirely off-accelerator.
     if jax.default_backend() == "cpu":
         return ""
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    _enabled = True
-    return path
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if not _enabled:
+        os.makedirs(_DEFAULT, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", _DEFAULT)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        _enabled = True
+    return _DEFAULT

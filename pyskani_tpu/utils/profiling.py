@@ -3,7 +3,7 @@
 The reference has none of this (SURVEY.md §5: no logging calls, no
 counters, no timings anywhere in /root/reference/src/pyskani/_skani/*.rs;
 the skani crate only links `log` + `simple-logging`).  This module adds
-the TPU-native equivalents:
+the device-side equivalents:
 
 * ``scope(name)`` — a context manager that opens a ``jax.profiler``
   TraceAnnotation (visible in XLA/TensorBoard traces) *and* records

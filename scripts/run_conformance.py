@@ -3,7 +3,7 @@
 BASELINE.md names "ANI abs error vs skani" a north-star metric, but only
 one real genome pair can be validated offline (the vendored E. coli
 golden pair).  This script widens the net with DERIVED real-genome
-fixtures (VERDICT r4 weak #4): slices of the vendored E. coli EC590
+fixtures: slices of the vendored E. coli EC590
 genome are mutated with uniform random substitutions at known rates, so
 each pair has an ORACLE-INDEPENDENT expected ANI — the realized
 per-base identity (1 - hamming/len), which the skani method estimates

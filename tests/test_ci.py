@@ -3,7 +3,7 @@
 The reference pins ``CommandParams.est_ci`` to its default-off value
 (/root/reference/src/pyskani/_skani/lib.rs:592); skani itself exposes it
 as ``--ci`` ([5%, 95%] percentile bootstrap over per-fragment ANIs).
-These tests pin the TPU engine's implementation: deterministic, bounds
+These tests pin the device engine's implementation: deterministic, bounds
 bracket the mean, off by default.
 """
 

@@ -106,19 +106,12 @@ def test_searchsorted_rows_matches_numpy():
     assert np.array_equal(out, np.zeros(N, np.int32))
 
 
-def test_pallas_dp_matches_scan():
-    """The TPU Pallas DP kernel (interpret mode) must equal the XLA
-    lax.scan fallback bit-for-bit — the kernel otherwise only runs on
-    real TPU hardware, outside this CPU suite."""
-    from pyskani_tpu.ops.chain import (_dp_grid_from_words, _dp_scan,
-                                       _pack_grid_words)
-    from pyskani_tpu.ops.chain_dp_pallas import dp_pallas
+def _random_dp_grid(rng, NF, PF, rbits=3):
+    """DP input planes for random near-diagonal anchors with mixed
+    contigs/orientations and ragged per-row fill, rows sorted by
+    (rcid, rpos) like the engine."""
+    from pyskani_tpu.ops.chain import _dp_grid_from_words, _pack_grid_words
 
-    rng = np.random.default_rng(99)
-    NF, PF, rbits = 24, 64, 3
-    cfg = ChainConfig(chain_band=25)
-    # random near-diagonal anchors with mixed contigs/orientations and
-    # ragged per-row fill, rows sorted by (rcid, rpos) like the engine
     qpos = np.zeros((NF, PF), np.int32)
     rpos = np.zeros((NF, PF), np.int32)
     rcid = np.zeros((NF, PF), np.int32)
@@ -138,15 +131,76 @@ def test_pallas_dp_matches_scan():
     w1, w2 = _pack_grid_words(jnp.asarray(qpos), jnp.asarray(rpos),
                               jnp.asarray(rcid), jnp.asarray(rev),
                               jnp.asarray(ok), rbits)
-    grid = _dp_grid_from_words(w1, w2, rbits)
+    return _dp_grid_from_words(w1, w2, rbits)
+
+
+@pytest.mark.parametrize("PF", [64, 100])
+@pytest.mark.parametrize("lanes", ["ragged", "block_multiple"])
+@pytest.mark.parametrize("band", [8, 25, 33])
+def test_pallas_dp_matches_scan(band, lanes, PF):
+    """The GPU Pallas DP kernel (Triton route, interpret mode) must equal
+    the XLA lax.scan reference bit-for-bit — on CPU the kernel runs only
+    here; chip_smoke.py compares the compiled kernel on the card.  Covers
+    rings smaller than, equal to and past a power of two (band 8/25/33),
+    lane counts that need padding, and an anchor axis that is not a
+    power of two."""
+    from pyskani_tpu.ops.chain import _dp_scan, _unpack_meta
+    from pyskani_tpu.ops.chain_dp_pallas import LANE_BLOCK, dp_pallas
+
+    NF = 2 * LANE_BLOCK if lanes == "block_multiple" else LANE_BLOCK + 72
+    rng = np.random.default_rng(band * 1000 + PF + NF)
+    cfg = ChainConfig(chain_band=band)
+    grid = _random_dp_grid(rng, NF, PF)
     budgets = EngineBudgets(max_fragments=NF, max_anchors_per_fragment=PF)
-    s_scan, r_scan = _dp_scan(
-        dict(qpos=grid["qpos"], rpos=grid["rpos"],
-             qcid=jnp.zeros((NF, PF), jnp.int32),
-             rcid=jnp.asarray(np.where(ok, rcid, 0x7FFFFFFF)),
-             rev=jnp.asarray(rev), valid=jnp.asarray(ok)), cfg, budgets)
+    s_scan, r_scan = _dp_scan(_unpack_meta(grid), cfg, budgets)
+    # the grid must exercise chaining, not only singleton anchors
+    assert int((np.asarray(r_scan) != np.arange(PF)).sum()) > NF
     s_pal, r_pal = dp_pallas(grid["qpos"].T, grid["rpos"].T,
                              grid["meta"].T, cfg, interpret=True)
-    np.testing.assert_allclose(np.asarray(s_pal.T), np.asarray(s_scan),
-                               rtol=0, atol=0)
+    np.testing.assert_array_equal(np.asarray(s_pal.T), np.asarray(s_scan))
     np.testing.assert_array_equal(np.asarray(r_pal.T), np.asarray(r_scan))
+
+
+@pytest.mark.parametrize("backend,kernel", [("gpu", True), ("cpu", False)])
+def test_dp_dispatch_picks_kernel_on_gpu(monkeypatch, backend, kernel):
+    """On a GPU the DP runs the compiled kernel (never interpret mode);
+    on the CPU it runs the lax.scan reference."""
+    import jax
+
+    from pyskani_tpu.ops import chain, chain_dp_pallas
+
+    calls = []
+
+    def stub(qpos_t, rpos_t, meta_t, cfg, interpret=False):
+        calls.append(interpret)
+        return (jnp.zeros(qpos_t.shape, jnp.float32),
+                jnp.zeros(qpos_t.shape, jnp.int32))
+
+    monkeypatch.setattr(chain_dp_pallas, "dp_pallas", stub)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    NF, PF = 24, 16
+    grid = _random_dp_grid(np.random.default_rng(5), NF, PF)
+    score, root = chain._dp_dispatch(grid, ChainConfig(), EngineBudgets())
+    assert score.shape == root.shape == (NF, PF)
+    assert calls == ([False] if kernel else [])
+    if not kernel:
+        want = chain._dp_scan(chain._unpack_meta(grid), ChainConfig(),
+                              EngineBudgets())
+        np.testing.assert_array_equal(np.asarray(root), np.asarray(want[1]))
+
+
+def test_dp_dispatch_lowers_to_triton_for_cuda(monkeypatch):
+    """Lowered for CUDA, the GPU branch is one compiled Triton kernel
+    call — not the interpreter's unrolled HLO."""
+    import jax
+
+    from pyskani_tpu.ops import chain
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    grid = _random_dp_grid(np.random.default_rng(6), 200, 64)
+    lowered = jax.jit(
+        lambda g: chain._dp_dispatch(g, ChainConfig(), EngineBudgets())
+    ).trace(grid).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "while" not in text

@@ -97,9 +97,9 @@ def test_batched_sketch_matches_single():
 
 
 def test_sketch_many_groups_by_size():
-    """Mixed-size batches stack near-homogeneous groups (VERDICT r4 weak
-    #6): a large genome must not inflate the small genomes' padded
-    budgets, and input order is restored on return."""
+    """Mixed-size batches stack near-homogeneous groups: a large genome must
+    not inflate the small genomes' padded budgets, and input order is
+    restored on return."""
     from pyskani_tpu.ops.sketch import (seed_budget_for,
                                         sketch_genomes_device)
 

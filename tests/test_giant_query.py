@@ -2,13 +2,12 @@
 
 The reference has no coordinate limits at all — positions are full-width
 GnPosition and genome totals are usize
-(/root/reference/src/pyskani/_skani/lib.rs:160) — so multi-Gbp queries
-must work.  The packed block/triangle pipelines cap query totals at 2^30
-(gq<<2 payload) and the engine routes larger genomes through the
-full-range per-pair path; these tests pin that routing and the
-correctness of the unpacked coordinate handling (VERDICT r4 next-step
-#1), plus the chunked sketching that lets giants sketch in bounded
-memory.
+(/root/reference/src/pyskani/_skani/lib.rs:160) — so multi-Gbp queries must
+work.  The packed block/triangle pipelines cap query totals at 2^30 (gq<<2
+payload) and the engine routes larger genomes through the full-range
+per-pair path; these tests pin that routing and the correctness of the
+unpacked coordinate handling, plus the chunked sketching that lets giants
+sketch in bounded memory.
 """
 
 import dataclasses
@@ -165,8 +164,7 @@ def test_contig_positions_beyond_2pow30(ecoli_ec590, ecoli_k12):
 
 def test_triangle_giant_total_reroutes(ecoli_ec590, ecoli_k12):
     """engine.batch.triangle with a genome >= 2^30 bp total reroutes its
-    pairs through the per-pair pipeline instead of raising (VERDICT r4
-    next-step #1/#2)."""
+    pairs through the per-pair pipeline instead of raising."""
     from pyskani_tpu.engine.batch import triangle
     from pyskani_tpu.oracle.chain import ChainConfig
 

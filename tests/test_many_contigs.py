@@ -1,8 +1,8 @@
-"""Arbitrary contig counts + giant-contig fallback (VERDICT r3 #1/#2).
+"""Arbitrary contig counts + giant-contig fallback.
 
 The reference sketches any number of contigs (lib.rs:155-173 loops a
 Vec) and uses full-width positions (GnPosition, lib.rs:160).  These
-tests pin the TPU engine's equivalents: dynamically-sized contig-table
+tests pin the device engine's equivalents: dynamically-sized contig-table
 buckets (ops.sketch.contig_budget_for), the dynamic rcid bit split of
 the packed block grid (ops.chain.rcid_bits_for), and Database.query's
 automatic rerouting of out-of-range references through the full-range
@@ -57,7 +57,7 @@ def test_explicit_max_contigs_guard():
 
 
 def test_300_contig_draft_query():
-    """The VERDICT r3 crash repro: an ordinary 300-contig draft assembly
+    """Crash repro: an ordinary 300-contig draft assembly
     must sketch and be findable (previously IndexError at sketch)."""
     rng = np.random.default_rng(7)
     base = random_genome(rng, 600_000)
@@ -115,7 +115,7 @@ def test_block_matches_pairwise_beyond_256_contigs(many_contig_stack):
 
 def test_split_vs_whole_ecoli(ecoli_k12, ecoli_ec590):
     """A 1,000-contig split of E. coli K-12 must query like the
-    single-contig genome (VERDICT r3 next-step #1 'done' criterion).
+    single-contig genome.
     Values differ only by the k-mer windows lost at the 999 cut points
     (~0.3% of seeds), so ANI/AF agree tightly but not bit-exactly."""
     db = pyskani_tpu.Database()
@@ -176,7 +176,7 @@ def test_giant_contig_fallback_memory():
 
 def test_total_len_uint32_roundtrip(tmp_path):
     """Aggregate genome lengths are uint32 (multi-Gbp many-contig genomes
-    must not wrap int32 — VERDICT r3 next-step #10)."""
+    must not wrap int32)."""
     from pyskani_tpu.db.storage import sketch_from_bytes, sketch_to_bytes
     from pyskani_tpu.ops.sketch import HostSketch
 

@@ -1,6 +1,5 @@
 """Native (C++) FASTA reader parity vs the pure-Python parser.
 
-VERDICT r2 next-steps #10: the native reader was previously untested.
 Skipped when no C++ toolchain / prebuilt .so is available (the CLI falls
 back transparently, cli.py).
 """

@@ -82,7 +82,7 @@ def test_shard_invariance(family, db, batch):
 
 
 def test_screen_saves_compute():
-    """VERDICT r2 weak #4: screened-out pairs are never chained.  With a
+    """Screened-out pairs are never chained.  With a
     mostly-unrelated reference set the shortlist pass count (n_chained)
     must be far below R*Q, while screened-in pairs still match the dense
     per-pair reference exactly."""
@@ -151,9 +151,9 @@ def test_restart_reshard_deterministic(tmp_path):
 
 
 def test_streamed_sharded_search_matches_memory(tmp_path):
-    """Disk-backed (open) stores STREAM ref chunks through the mesh
-    (VERDICT r3 #5): results must equal the in-memory preplaced-stack
-    path for any chunking, peak ref memory bounded by one chunk."""
+    """Disk-backed (open) stores STREAM ref chunks through the mesh:
+    results must equal the in-memory preplaced-stack path for any
+    chunking, peak ref memory bounded by one chunk."""
     import pyskani_tpu
     from pyskani_tpu.parallel.search import ShardedDatabaseSearch
 
@@ -188,7 +188,7 @@ def test_streamed_sharded_search_matches_memory(tmp_path):
 def test_sharded_search_oversized_query_fallback():
     """A query whose fragment count exceeds the searcher's store-sized
     budget reroutes through the single-device Database.query path
-    instead of raising (VERDICT r4 weak #2); results slot back into
+    instead of raising; results slot back into
     input order alongside mesh-path queries."""
     import pyskani_tpu
     from pyskani_tpu.parallel.search import ShardedDatabaseSearch

@@ -1,7 +1,6 @@
 """Arbitrary-k sketching, the seed kwarg, and API-parity details.
 
-VERDICT r2 next-steps #7 (generalise k) and #9 (seed kwarg, save()
-signature, Sketch wiring).
+Generalised k, the seed kwarg, the save() signature and Sketch wiring.
 """
 
 import dataclasses
@@ -71,7 +70,7 @@ def test_ani_matches_oracle_large_k(k):
 
 
 def test_database_k21_roundtrip(tmp_path):
-    """Database(k=21) works end-to-end incl. persistence (VERDICT #7)."""
+    """Database(k=21) works end-to-end incl. persistence."""
     rng = np.random.default_rng(7)
     a, b = _pair(rng)
     db = pyskani_tpu.Database(tmp_path / "db", k=21)

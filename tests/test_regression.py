@@ -47,7 +47,7 @@ def test_apply_model_identity_without_model():
     assert regression.apply_model(None, 0.95, 0.9, 0.9) == 0.95
 
 
-# ---- off-anchor validation of the applied correction (VERDICT r3 #6) ----
+# ---- off-anchor validation of the applied correction ----
 # apply_model (not raw model.predict) is what Database.query uses; its
 # safety rails make it monotone, bounded, and exact at the golden anchor.
 

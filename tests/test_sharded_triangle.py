@@ -1,9 +1,9 @@
 """Mesh-parallel all-vs-all triangle == single-device triangle.
 
 BASELINE.md measures the all-vs-all headline metric at 1 chip / 1 host /
->= 2 hosts; parallel.dist.sharded_triangle is that scaling path
-(VERDICT r3 next-step #4).  Every tile runs the same chain_block
-program, so results must be IDENTICAL across mesh shapes.
+>= 2 hosts; parallel.dist.sharded_triangle is that scaling path.  Every
+tile runs the same chain_block program, so results must be IDENTICAL
+across mesh shapes.
 """
 
 import numpy as np
@@ -82,7 +82,7 @@ def test_sharded_triangle_with_giant_genome(family32):
     """A genome beyond the packed range (here: total >= 2^30 bp) no
     longer raises on the mesh paths: its pairs reroute through the
     full-range per-pair pipeline and merge with the mesh tiles,
-    matching the single-device triangle (VERDICT r4 weak #2)."""
+    matching the single-device triangle."""
     import dataclasses
 
     import jax
